@@ -8,7 +8,7 @@ this environment has no network access — shapes and model configs match):
   1  MovieLens-100K-shaped rating regression, rank-8 FM, SGD, single host
   2  MovieLens-25M-shaped rating regression, rank-32 FM, ALS
   3  Criteo-shaped CTR: hashed 2^24 buckets, logistic rank-32 FM, SGD
-     (fused sparse path on TPU)
+     (hybrid sparse path)
   4  Avazu-shaped CTR, field-aware (FFM) per-field factors
   5  DeepFM: FM + MLP tower on Criteo-shaped data
 
@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, ".")  # repo root
+sys.path.insert(0, os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))  # repo root
 
 
 def config1(scale):
@@ -159,6 +161,8 @@ def main():
     ap.add_argument("config", type=int, choices=[1, 2, 3, 4, 5])
     ap.add_argument("--scale", type=float, default=0.1)
     args = ap.parse_args()
+    from sparkfm_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     fn = {1: config1, 2: config2, 3: config3, 4: config4, 5: config5}
     t0 = time.perf_counter()
     out = fn[args.config](args.scale)

@@ -7,16 +7,15 @@
 // the fill id, plus the id-sorted values and example indices the hybrid
 // sorted-backward step consumes.
 //
-// Why native: numpy's argsort + five fancy-index passes cost ~68 ms for a
-// 16384x39 Criteo batch on this host — 3x the ~21 ms device step, i.e. the
-// input pipeline throttles the chip even through the prefetcher. This
-// implementation uses a 3x11-bit LSD radix sort (stable by construction,
+// Why native: numpy's argsort + five fancy-index passes are several times
+// slower at Criteo batch shapes, enough for the input pipeline to hold
+// the device back even through the prefetcher. This implementation uses a 3x11-bit LSD radix sort (stable by construction,
 // matching numpy's kind="stable") and fuses every derived array into the
 // two passes over the sorted slots.
 //
 // The reference has no analog (its ETL ships driver-built indexer maps in
 // Spark closures, StandardVectorizor.scala:26-48); this is runtime support
-// for the TPU step's fixed-budget unique-row contract.
+// for the train step's fixed-budget unique-row contract.
 
 #include <cstdint>
 #include <cstring>

@@ -2,7 +2,7 @@
 //
 // The reference's only native code is transitively linked BLAS (SURVEY §2:
 // breeze-natives); its ingestion is JVM string splitting per line
-// (FMUtils.scala:24-37). Feeding a TPU chip demands host-side parse rates
+// (FMUtils.scala:24-37). Feeding an accelerator demands host-side parse rates
 // far beyond a Python (or JVM-string) loop, so this parser:
 //
 //   * reads the whole file once, splits it into per-thread chunks at line

@@ -1,4 +1,4 @@
-"""sparkfm_tpu — a TPU-native factorization-machine framework.
+"""sparkfm_tpu — a JAX factorization-machine framework.
 
 Brand-new JAX/XLA/Pallas/pjit implementation of the capabilities of the
 reference SparkFM (edmundhung/SparkFM, studied in SURVEY.md): second-order FM

@@ -55,7 +55,7 @@ class FMModel:
             # fill with the LAST row id: fill entries trail the sorted
             # uniques, so fill must compare >= every uid or the
             # indices_are_sorted gather promise in fm.scores is violated
-            # (fill=0 put zeros after larger ids — UB on TPU)
+            # (fill=0 put zeros after larger ids — undefined behavior)
             dedup_budget, dedup_fill = "ladder", self.cfg.num_features - 1
         outs = []
         for b in batch_iterator(ds, batch_size, shuffle=False,
@@ -276,9 +276,8 @@ def _detect_slot_major(train, num_fields: int) -> bool:
     (field_ids == broadcast arange — the fixed-column hashed-CTR layout
     synth_ctr and the Avazu/Criteo loaders emit). A host-side one-pass
     check at fit time; when true the FFM interaction takes the static
-    transpose form (ops/interaction.py::ffm_interaction_slot_major,
-    measured ~12 ms/step at the config-4 shape) with identical math
-    (parity-tested incl. gradients)."""
+    transpose form (ops/interaction.py::ffm_interaction_slot_major)
+    with identical math (parity-tested incl. gradients)."""
     if num_fields <= 0:
         return False
     fids = getattr(train, "field_ids", None)
@@ -366,7 +365,7 @@ class FM:
         # direct by table size and model).
         self.update_path = update_path
         # Hybrid path: scan this many staged batches per jitted dispatch
-        # (SGDConfig.steps_per_dispatch; amortizes the TPU launch floor).
+        # (SGDConfig.steps_per_dispatch; amortizes the launch cost).
         self.steps_per_dispatch = steps_per_dispatch
         # Device-mesh training (solver="sgd" only): a jax.sharding.Mesh, a
         # config.MeshConfig, or a "DATAxMODEL" string like "4x2". None =

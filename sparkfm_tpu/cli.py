@@ -352,8 +352,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(multi-host SPMD; every host runs this command)")
     t.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="hybrid path: lax.scan this many staged batches "
-                        "per jitted dispatch (amortizes the TPU launch "
-                        "floor; update sequence unchanged)")
+                        "per jitted dispatch (amortizes the launch "
+                        "cost; update sequence unchanged)")
     t.add_argument("--update-path", default="auto",
                    choices=["auto", "direct", "dedup", "fused", "sorted",
                             "hybrid"],
@@ -434,6 +434,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    from sparkfm_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,4 +1,4 @@
-"""Configuration tree for the TPU-native FM framework.
+"""Configuration tree for the FM framework.
 
 Replaces the reference's hardcoded hyperparameters and mutable model fields
 (reference: fm/FMModel.scala:10-31, fm/FM.scala:25-33, driver.scala:115) with a
@@ -66,8 +66,8 @@ class FMConfig:
     # field l (so L == num_fields and field_ids == arange — the fixed-
     # column hashed-CTR layout Avazu/Criteo loaders emit). A STATIC bit:
     # the interaction drops its one-hot field-aggregation matmuls for a
-    # transpose multiply (ops/interaction.py::ffm_interaction_slot_major,
-    # measured ~1.3 ms/step at the config-4 shape) and batches may omit
+    # transpose multiply (ops/interaction.py::ffm_interaction_slot_major)
+    # and batches may omit
     # field_ids entirely. Leave False for ragged/multi-hot field layouts.
     slot_major_fields: bool = False
     # Attribute groups (the reference's Metadata capability,
@@ -141,36 +141,29 @@ class SGDConfig:
     #   "direct" — XLA gather/scatter straight on the (F, K) tables.
     #   "dedup"  — sort + unique-compact the batch ids first; the big table
     #              is touched once per *unique* id and all per-slot math runs
-    #              against a small (U, K) matrix (ops/embedding.py). Strictly
-    #              faster on TPU for F >~ 2^16 (XLA big-table scatter is
-    #              ~200ns/row; small-table ops are ~10-20x cheaper). The
+    #              against a small (U, K) matrix (ops/embedding.py). The
     #              only path offering adam/momentum.
     #   "fused"  — dedup plus the fused record layout [v|slot_v|w|slot_w]
-    #              in one lane-tiled row (solvers/sgd_fused.py): ONE
-    #              sorted-hint unique-row gather + ONE write-back per
-    #              step. adagrad / adagrad_row / plain sgd. Covers FFM
-    #              too (v block widens to num_fields*K; the write fusion
-    #              is worth ~21 ms/step at the config-4 shape, where the
-    #              4-scatter dedup write-back dominated the step —
-    #              benchmarks/ablate_ffm.py).
+    #              in one row (solvers/sgd_fused.py): ONE sorted-hint
+    #              unique-row gather + ONE write-back per step. adagrad /
+    #              adagrad_row / plain sgd. Covers FFM too (v block widens
+    #              to num_fields*K).
     #   "sorted" — slots re-sorted by feature id once per batch; per-unique
-    #              reductions become streaming Pallas segment sums
-    #              (solvers/sgd_sorted.py). Kept as an alternative: in-step
-    #              the example-space crossings leave "fused" ahead.
+    #              reductions become segment sums over sorted runs
+    #              (solvers/sgd_sorted.py).
     #   "hybrid" — natural-order forward + ANALYTIC id-sorted backward
     #              (solvers/sgd_hybrid.py): gradients are evaluated
     #              directly in sorted slot order from the closed-form FM
-    #              gradient, so the per-step scatter-add/permute that
-    #              dominates "fused" disappears; reductions run in the
-    #              in-kernel-squaring Pallas segment sum. Restrictions:
-    #              requires host plans carrying order/seg/svals/sex
-    #              (batch_iterator(dedup_budget=...) emits them), plain FM
-    #              only, float32 only, adagrad/adagrad_row/sgd, no
-    #              momentum, no attribute-group regularization.
+    #              gradient and reduced over sorted runs, so the
+    #              per-slot scatter-add/permute of "fused" disappears.
+    #              Restrictions: requires host plans carrying
+    #              order/seg/svals/sex (batch_iterator(dedup_budget=...)
+    #              emits them), plain FM only, float32 only,
+    #              adagrad/adagrad_row/sgd, no momentum, no
+    #              attribute-group regularization.
     #   "auto"   — direct below 2^16 features; above: hybrid when host
-    #              plans + the model/optimizer fit its restrictions
-    #              (measured fastest: 854K vs fused 750K ex/s at Criteo
-    #              shapes, v5e), else fused, else dedup
+    #              plans + the model/optimizer fit its restrictions,
+    #              else fused, else dedup
     #              (solvers/sgd.py::resolve_update_path).
     update_path: str = "auto"
     # Static unique-id budget U for the dedup-plan paths. 0 = auto:
@@ -181,35 +174,24 @@ class SGDConfig:
     # (no overflow possible), capped at 2^18. A positive value pins one
     # static budget (required for the sharded paths).
     unique_budget: int = 0
-    # Write-back kernel for the dedup path's unique rows:
-    #   "auto"   — XLA scatter with sortedness hints (measured fastest)
-    #   "pallas" | "xla" | "interpret" — force a specific implementation
-    pallas_scatter: str = "auto"
     # Compute the dedup plan on the HOST in the input pipeline (overlapped
     # with device compute via data.batching.prefetch) instead of sorting
-    # on device inside the step — saves ~4 ms/step at Criteo shapes.
+    # on device inside the step.
     host_plan: bool = True
     # How per-slot gradients reduce to per-unique-row gradients in the
     # dedup/fused paths:
-    #   "scatter" — XLA scatter-add by rank (639Kx66: ~12 ms in-step at
-    #               Criteo shapes on v5e).
+    #   "scatter" — XLA scatter-add by rank.
     #   "segsum"  — permute slots into id-sorted order (the plan carries
-    #               the permutation for free) + streaming Pallas segment
-    #               sum. In-step ablation (benchmarks/ablate_prod.py, v5e)
-    #               measured the permute at ~7.8 ms and the f32 segment
-    #               sum at ~7.2 ms — net SLOWER than scatter inside the
-    #               real step (standalone microbenches that suggested
-    #               otherwise missed the in-step fusion/overlap effects).
-    #   "auto"    — scatter (the measured in-step winner on v5e).
+    #               the permutation) + segment sum over sorted runs.
+    #   "auto"    — scatter.
     accumulate: str = "auto"
     # Hybrid path only: scan this many staged batches per jitted dispatch
-    # (solvers/sgd_hybrid.py::make_hybrid_multi_step). Each dispatch on
-    # TPU pays a fixed launch/donation floor (~1.6 ms measured on v5e);
-    # grouping amortizes it — measured 1.28M -> 1.35M ex/s at the Criteo
-    # headline with 2 steps/dispatch. The update sequence is EXACTLY the
-    # single-step one (lax.scan is sequential); batches whose ladder
-    # plans land on different rungs are stepped singly (shape mismatch),
-    # so rung growth mid-epoch degrades gracefully.
+    # (solvers/sgd_hybrid.py::make_hybrid_multi_step). Each dispatch pays
+    # a fixed launch/donation cost; grouping amortizes it. The update
+    # sequence is EXACTLY the single-step one (lax.scan is sequential);
+    # batches whose ladder plans land on different rungs are stepped
+    # singly (shape mismatch), so rung growth mid-epoch degrades
+    # gracefully.
     steps_per_dispatch: int = 1
 
 
@@ -218,7 +200,7 @@ class ALSConfig:
     """Blocked coordinate-descent (Rendle ALS) config.
 
     The reference's ALS (fm/lib/ALS.scala:15-75) is strictly sequential
-    Gauss-Seidel on the driver. The TPU formulation processes features in
+    Gauss-Seidel on the driver. This formulation processes features in
     blocks: Jacobi within a block, exact Gauss-Seidel across blocks (residual
     and q-cache are patched *exactly* after every block — see
     solvers/als.py). ``block_size`` trades parallelism against staleness; if

@@ -174,7 +174,7 @@ def load_criteo_tsv(path: str, num_buckets: int = 1 << 24,
     Integer features are log2-binned (:func:`_int_bin`), categorical hex
     strings parsed as 64-bit tokens; every field f contributes exactly one
     hashed id mix(f, token) so nnz = 39 per example with weight 1.0 —
-    the fixed-shape padded-CSR layout the TPU step consumes directly.
+    the fixed-shape padded-CSR layout the train step consumes directly.
 
     ``with_fields=True`` attaches per-slot field ids for FFM (config 4).
     """

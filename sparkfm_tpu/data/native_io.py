@@ -1,7 +1,9 @@
 """ctypes bridge to the native (C++) data-loading fast paths.
 
-Loads native/build/libfm_parser.so, auto-building it with the repo Makefile
-on first use if a C++ toolchain is available. Set SPARKFM_NO_NATIVE=1 to
+Loads native/build/libfm_parser.so and native/build/dedup_plan.so, building
+them from native/*.cpp with the repo Makefile on first use (and again when a
+source is newer than its library) if a C++ toolchain is available. The
+libraries are build outputs, never committed. Set SPARKFM_NO_NATIVE=1 to
 force the pure-Python fallbacks (sparkfm_tpu/data/libfm.py is the semantics
 reference; tests/test_native_io.py pins byte-for-byte parity).
 """
@@ -26,6 +28,22 @@ _lib = None
 _build_failed = False
 
 
+def _ensure_built(so_path: str) -> bool:
+    """Run ``make`` when ``so_path`` is missing or older than its source
+    (native/<name>.cpp). Returns False if the build fails."""
+    src = os.path.join(_NATIVE_DIR,
+                       os.path.basename(so_path)[:-len(".so")] + ".cpp")
+    if (os.path.exists(so_path)
+            and os.path.getmtime(so_path) >= os.path.getmtime(src)):
+        return True
+    try:
+        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
+                       capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return os.path.exists(so_path)
+
+
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _build_failed
     if os.environ.get("SPARKFM_NO_NATIVE"):
@@ -35,13 +53,9 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         if _build_failed:
             return None
-        if not os.path.exists(_SO_PATH):
-            try:
-                subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                               capture_output=True, timeout=120)
-            except Exception:
-                _build_failed = True
-                return None
+        if not _ensure_built(_SO_PATH):
+            _build_failed = True
+            return None
         try:
             lib = ctypes.CDLL(_SO_PATH)
         except OSError:
@@ -120,13 +134,9 @@ def _load_dedup() -> Optional[ctypes.CDLL]:
             return _dp_lib
         if _dp_failed:
             return None
-        if not os.path.exists(_DP_SO):
-            try:
-                subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                               capture_output=True, timeout=120)
-            except Exception:
-                _dp_failed = True
-                return None
+        if not _ensure_built(_DP_SO):
+            _dp_failed = True
+            return None
         try:
             lib = ctypes.CDLL(_DP_SO)
         except OSError:
@@ -142,14 +152,20 @@ def _load_dedup() -> Optional[ctypes.CDLL]:
         return _dp_lib
 
 
+def dedup_available() -> bool:
+    """True when the native dedup-plan builder is loaded (False under
+    SPARKFM_NO_NATIVE or when it cannot be built)."""
+    return _load_dedup() is not None
+
+
 def dedup_plan_native(ids: np.ndarray, budget: int, fill: int,
                       vals: Optional[np.ndarray] = None):
     """Native twin of ops.embedding.host_dedup's array math.
 
     Returns (uids, ranks, count, overflow, order, seg, svals, sex) as
     numpy arrays (svals/sex None when vals is None), or None when the
-    native library is unavailable. ~10x faster than the numpy path at
-    Criteo batch shapes (radix sort + fused derivation passes).
+    native library is unavailable (radix sort + fused derivation
+    passes).
     """
     lib = _load_dedup()
     if lib is None:

@@ -7,8 +7,8 @@ example. In the reference this is half-built: the data plumbing exists but
 training on it hits a self-recursive overload (FMLearn.scala:14) and a
 commented-out ALS path (ALS.scala:77-136).
 
-The TPU-native design makes the join a device gather (SURVEY §2.4): each
-relation is a padded-CSR table resident in HBM, each example carries one row
+This design makes the join a device gather (SURVEY §2.4): each
+relation is a padded-CSR table resident in device memory, each example carries one row
 key per relation, and inside the jitted train step the full feature list is
 ``concat(main_block, table.ids[keys] + offset, ...)`` — static shapes, pure
 gather, no host join. The feature-space layout is identical to the
@@ -16,9 +16,8 @@ materialized path (:meth:`RelationVectorizer.transform`), so the two paths
 score bit-identically and either can train the same model.
 
 Rendle's BS-ALS caching trick (per-relation-row partial sums,
-Relation.scala:23-31) is unnecessary here: the gather feeds the same MXU
-interaction kernel as any batch, and repeated rows are deduplicated by HBM
-caching rather than algebraic caching.
+Relation.scala:23-31) is unnecessary here: the gather feeds the same
+interaction as any batch.
 """
 
 from __future__ import annotations

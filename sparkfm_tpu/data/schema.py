@@ -1,6 +1,6 @@
 """Column schema for raw-text vectorization.
 
-TPU-native redesign of the reference's DataNode layer (fm/util/DataNode.scala,
+Redesign of the reference's DataNode layer (fm/util/DataNode.scala,
 fm/util/DataTransformer.scala): a declarative per-column spec describing how
 one field of a delimited text file becomes a block of sparse features. The
 reference mutates builder-style DataNode objects holding driver-side indexer

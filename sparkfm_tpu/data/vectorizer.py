@@ -1,6 +1,6 @@
 """Schema-driven vectorization: raw delimited text -> padded-CSR datasets.
 
-TPU-native redesign of the reference's StandardVectorizor / RelationVectorizor
+Redesign of the reference's StandardVectorizor / RelationVectorizor
 (fm/util/StandardVectorizor.scala, fm/util/RelationVectorizor.scala). Same
 observable pipeline — identify target vs. inputs, drop malformed rows, learn
 per-column vocabularies, emit one concatenated sparse block per column with a

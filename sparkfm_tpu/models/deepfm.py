@@ -1,13 +1,13 @@
 """DeepFM: shared-embedding FM + MLP tower (Guo et al. 2017).
 
 Stretch model family beyond the reference (which ships only second-order FM;
-BASELINE.md lists DeepFM as a target config). TPU-native design choices:
+BASELINE.md lists DeepFM as a target config). Design choices:
 
   * the FM tables (w, V) double as the deep side's embedding tables — one
     gather feeds both heads;
   * the tower input is the (B, num_fields * K) concatenation of per-field
     embedding rows scaled by their values, so the whole deep side is dense
-    MXU matmuls;
+    matmuls;
   * one jitted train step updates tables sparsely (same dedup-friendly
     row-update machinery as plain FM) and the tower densely.
 
@@ -115,11 +115,10 @@ def predict(params: DeepFMParams, cfg: DeepFMConfig, ids, vals):
 
 def resolve_deepfm_path(cfg: DeepFMConfig, sgd_cfg: SGDConfig) -> str:
     """auto policy: small tables -> direct XLA; big tables -> fused record
-    (round 5: ONE unique-row gather + ONE write for [v|slot_v|w|slot_w] —
-    the dedup path's four separate write-back scatters were the dominant
-    DeepFM stage, same disease the FFM path had; benchmarks/ablate_deepfm
-    .py). "dedup" stays available explicitly (and is the momentum-free
-    fallback shape the sharded path mirrors)."""
+    (ONE unique-row gather + ONE write for [v|slot_v|w|slot_w] instead
+    of the dedup path's four separate write-back scatters). "dedup"
+    stays available explicitly (and is the momentum-free fallback shape
+    the sharded path mirrors)."""
     path = sgd_cfg.update_path
     if path == "auto":
         if cfg.fm.num_features < (1 << 16):
@@ -270,7 +269,6 @@ def _make_dedup_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
     solvers/sgd.py::_make_dedup_train_step, tower grads ride along densely.
     Requires the state to be padded (pad_deepfm_state_for_dedup)."""
     from sparkfm_tpu.ops import embedding as E
-    from sparkfm_tpu.ops import pallas_rowio as PR
     from sparkfm_tpu.solvers import sgd as sgd_solver
 
     fm_cfg = cfg.fm
@@ -306,12 +304,7 @@ def _make_dedup_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
             p.fm.w0, w_rows, v_rows, p.mlp_w, p.mlp_b)
         g_w0, g_wrows, g_vrows, g_mw, g_mb = grads
 
-        # per-unique sums of grads and squared grads (small scatter).
-        # Measured on chip (round 4): the sorted-permute + streaming
-        # segsum alternative is ~6% SLOWER in-step here (373K vs 397K
-        # ex/s — the permute gather costs more than the scatter saves at
-        # B=8192/L=39), matching the r3 accumulate ablation; keep the
-        # scatter.
+        # per-unique sums of grads and squared grads (small scatter)
         packed = jnp.concatenate(
             [g_vrows.reshape(-1, k), g_wrows.reshape(-1, 1),
              jnp.square(g_vrows).reshape(-1, k),
@@ -334,11 +327,10 @@ def _make_dedup_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
             sw_u = slots["w"][plan.uids]
             v_new = v_u - lr * g_v_u
             w_new = w_u - lr * g_w_u
-        kw = dict(force=sgd_cfg.pallas_scatter, unique_indices=True)
-        v = PR.scatter_set(p.fm.v, plan.uids, v_new, **kw)
-        sv = PR.scatter_set(slots["v"], plan.uids, sv_u, **kw)
-        w = PR.scatter_set(p.fm.w, plan.uids, w_new, **kw)
-        sw = PR.scatter_set(slots["w"], plan.uids, sw_u, **kw)
+        v = E.write_rows(p.fm.v, plan.uids, v_new, unique_indices=True)
+        sv = E.write_rows(slots["v"], plan.uids, sv_u, unique_indices=True)
+        w = E.write_rows(p.fm.w, plan.uids, w_new, unique_indices=True)
+        sw = E.write_rows(slots["w"], plan.uids, sw_u, unique_indices=True)
 
         w0, sw0, _ = sgd_solver._dense_scalar_update(
             opt, lr, sgd_cfg, p.fm.w0, slots["w0"], None, g_w0, None)
@@ -364,7 +356,8 @@ def init_fused_deepfm_state(cfg: DeepFMConfig,
                             key: Optional[jax.Array] = None) -> dict:
     """Fused-record DeepFM state: the FM tables + their adagrad slots live
     in ONE (F+1, W) row table [v (K) | slot_v (K) | w | slot_w | pad]
-    (W = the 128-lane tile above 2K+2; solvers/sgd_fused.py layout) so a
+    (W = 2K+2 rounded up to a multiple of 128; solvers/sgd_fused.py
+    layout) so a
     step pays one unique-row gather and one write-back instead of four
     each way. Tower params/slots stay dense. Same keyed init as
     init_params."""
@@ -396,7 +389,6 @@ def _make_fused_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
     riding along. One (U, W) gather feeds both heads (the embedding rows
     ARE the FM v rows); one (U, W) scatter-set writes tables + slots."""
     from sparkfm_tpu.ops import embedding as E
-    from sparkfm_tpu.ops import pallas_rowio as PR
     from sparkfm_tpu.solvers import sgd as sgd_solver
 
     fm_cfg = cfg.fm
@@ -416,8 +408,8 @@ def _make_fused_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
         valid_u = jax.lax.iota(jnp.int32, budget) < jnp.minimum(
             plan.count, budget)
 
-        rec_u = table.at[plan.uids].get(
-            indices_are_sorted=True, mode="promise_in_bounds")  # (U, W)
+        rec_u = E.gather_rows(table, plan.uids,
+                              indices_are_sorted=True)        # (U, W)
         rec_u = jnp.where(valid_u[:, None], rec_u, 0.0)
         v_u = rec_u[:, :k]
         slot_v_u = rec_u[:, k:2 * k]
@@ -437,8 +429,7 @@ def _make_fused_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
             state["w0"], w_rows, v_rows, state["mlp_w"], state["mlp_b"])
         g_w0, g_wrows, g_vrows, g_mw, g_mb = grads
 
-        # scatter-add accumulate (measured round 4: sorted segsum ~6%
-        # slower in-step at this shape; keep the scatter)
+        # scatter-add accumulate
         packed = jnp.concatenate(
             [g_vrows.reshape(-1, k), g_wrows.reshape(-1, 1),
              jnp.square(g_vrows).reshape(-1, k),
@@ -463,9 +454,8 @@ def _make_fused_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
         rec_new = jnp.concatenate(
             [v_new, slot_v_new, w_new[:, None], slot_w_new[:, None],
              jnp.zeros((budget, W - 2 * k - 2), jnp.float32)], axis=1)
-        new_table = PR.scatter_set(table, plan.uids, rec_new,
-                                   force=sgd_cfg.pallas_scatter,
-                                   unique_indices=True)
+        new_table = E.write_rows(table, plan.uids, rec_new,
+                                 unique_indices=True)
 
         w0, sw0, _ = sgd_solver._dense_scalar_update(
             opt, lr, sgd_cfg, state["w0"], state["slot_w0"], None,

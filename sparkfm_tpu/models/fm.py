@@ -1,6 +1,6 @@
 """FM model: parameter container + batched prediction.
 
-TPU-native counterpart of the reference FMModel (fm/FMModel.scala:10-63).
+Counterpart of the reference FMModel (fm/FMModel.scala:10-63).
 Differences by design:
   * Parameters are a JAX pytree, not a driver-heap object broadcast via
     closures; under pjit the V/w tables shard row-wise over the `model` mesh
@@ -30,12 +30,9 @@ class FMParams:
 
     For FFM (num_fields > 0), v is stored FLAT as (F, num_fields * K) —
     one latent vector per (feature, target-field) pair, concatenated per
-    row. Flat storage is load-bearing on TPU: XLA tiles a table's
-    minor-most two dims to (8, 128), so a (F, 22, 8) layout pads 16x in
-    HBM (a 2^22-bucket Avazu table would need ~47 GB/buffer and OOM one
-    chip) while (F, 176) pads only to 256 lanes. The interaction ops
-    accept flat rows and reshape internally (fusion keeps the 4-D view
-    out of HBM).
+    row: one row gather fetches a feature's whole factor block. The
+    interaction ops accept flat rows and reshape internally (fusion keeps
+    the 4-D view out of device memory).
     """
 
     w0: jnp.ndarray
@@ -53,7 +50,7 @@ def init_params(cfg: FMConfig, key: jax.Array | None = None) -> FMParams:
         key = jax.random.PRNGKey(cfg.seed)
     dtype = jnp.dtype(cfg.dtype)
     if cfg.num_fields > 0:
-        # FLAT per-row layout (see FMParams doc: 16x HBM tax otherwise)
+        # FLAT per-row layout (see FMParams doc)
         vshape = (cfg.num_features, cfg.num_fields * cfg.num_factors)
     else:
         vshape = (cfg.num_features, cfg.num_factors)
@@ -73,18 +70,15 @@ def scores(params: FMParams, cfg: FMConfig,
     """Raw (pre-sigmoid) scores for a padded CSR batch.
 
     For big tables (F >= 2^16) plain-FM scoring goes through a dedup plan:
-    per-slot gathers from a multi-million-row table cost ~123 ns/row on
-    TPU, while sorting the batch's ids and touching only unique rows (with
-    the indices_are_sorted gather hint) is ~10x cheaper for typical
-    batches (measured, benchmarks/microbench.py).
+    the batch's ids are sorted and only unique rows are gathered from the
+    multi-million-row table (with the indices_are_sorted gather hint),
+    instead of one big-table gather per slot.
 
     ``plan`` (optional, plain FM): a HOST dedup plan for this batch
     (ops.embedding.host_dedup / batch_iterator(dedup_budget="ladder")).
     The device then does ONE tight unique-row gather — no in-step sorts,
     no worst-case budget. Caller contract: plan.count <= plan budget
     (ladder plans guarantee it), or scores of overflowed ids are wrong.
-    Measured serving throughput at Criteo shapes (B=4096): 130K ex/s
-    device-dedup -> 2M+ ex/s with ladder host plans.
     """
     cdt = jnp.dtype(cfg.compute_dtype)
     if cfg.num_fields > 0:

@@ -1,38 +1,29 @@
-"""Sparse embedding-table access paths, tuned for TPU memory behavior.
+"""Sparse embedding-table access paths.
 
-Measured on a TPU v5e-class chip (see bench notes in git history), XLA's
-native paths for a (2^22, 32) f32 table with ~320K batch lookups are far off
-the HBM roofline:
+A batch of B examples with L slots touches B*L table rows, but CTR-style
+(power-law) batches reference far fewer distinct ids. The dedup path
+sorts the batch ids once, compacts them to unique rows (a static budget
+U), touches the big table only U times, and does all per-slot work
+against a small (U, K) matrix:
 
-  * gather  table[ids]           ~41 ns/row   (13 ms)
-  * scatter table.at[ids].add    ~144-206 ns/row (46 ms; sorted/unique
-    flags change nothing)
-  * gather from a VMEM-sized table (<=2^16 rows) ~5 ns/row — 8x faster
-  * scatter-add into a VMEM-sized table ~15 ns/row
-  * lax.sort of 320K int32 pairs ~0.8 ms
-
-The dedup path exploits this: sort the batch ids once, compact to unique
-rows (a static budget U), touch the big table only U times, and do all
-per-slot work against a small VMEM-resident (U, K) matrix:
-
-  1. sort (ids, pos)                                  [cheap]
+  1. sort (ids, pos)
   2. seg_id = rank of each sorted slot's unique id    [cumsum]
-  3. ranks in natural order = unsort seg_id by pos    [2nd cheap sort]
-  4. unique ids = stable compaction of boundaries     [3rd cheap sort]
-  5. rows_u = table[uids]                             [U x 41ns]
-  6. per-slot rows = rows_u[ranks]                    [N x 5ns, VMEM]
-  7. backward: grads scatter-add into (U, K)          [N x 15ns, VMEM]
+  3. ranks in natural order = unsort seg_id by pos    [2nd sort]
+  4. unique ids = stable compaction of boundaries     [3rd sort]
+  5. rows_u = table[uids]                             [U big-table rows]
+  6. per-slot rows = rows_u[ranks]                    [N small-table rows]
+  7. backward: grads scatter-add into (U, K)
   8. update unique rows densely, write back with one
-     scatter-set of U unique rows                     [U rows]
+     scatter-set of U unique rows                     [U big-table rows]
 
-For power-law (CTR) batches U << N, so steps 5/8 — the only big-table
-traffic — shrink by the dedup ratio. Overflowing ids beyond the U budget
-fall back into a shared overflow slot whose updates are dropped (counted in
+For power-law batches U << N, so steps 5/8 — the only big-table traffic
+— shrink by the dedup ratio. Overflowing ids beyond the U budget fall
+back into a shared overflow slot whose updates are dropped (counted in
 aux); budgets should be set so this is rare (auto mode sizes U from N).
 
 The reference has no analog: its driver pulls the whole dataset and model
-into JVM heaps (ALS.scala:34). This module is the TPU-native replacement for
-"how parameters are touched at all".
+into JVM heaps (ALS.scala:34). This module replaces "how parameters are
+touched at all".
 """
 
 from __future__ import annotations
@@ -63,12 +54,11 @@ class DedupBatch(NamedTuple):
             scatter-add.
     seg:    optional (N,) int32 — dense rank of each *sorted* slot's id,
             clipped to [0, U) (== ranks.reshape(-1)[order]); sorted
-            non-decreasing, step <= 1 — the pallas_segsum contract.
+            non-decreasing, step <= 1 — the ops/segsum.py contract.
     svals:  optional (N,) f32 — slot values in id-sorted order
             (= vals.flat[order]); host plans carry it so the hybrid
             sorted-backward step (solvers/sgd_hybrid.py) never permutes on
-            device (a 1-lane device permute measures ~6 ms at Criteo
-            shapes, vs free on the host where `order` already exists).
+            device (free on the host, where `order` already exists).
     sex:    optional (N,) int32 — each sorted slot's example index
             (= order // L).
     """
@@ -127,18 +117,18 @@ def host_dedup(ids, budget: int, fill: int, vals=None) -> DedupBatch:
     """Numpy twin of :func:`dedup_ids` for the host input pipeline.
 
     Computing the plan on the host (overlapped with device compute by the
-    prefetching batch iterator) removes the in-step sorts entirely —
-    measured ~4.3 ms/step on v5e Criteo-shape batches. Semantics are
-    identical; tests assert element equality with dedup_ids.
+    prefetching batch iterator) removes the in-step sorts entirely.
+    Semantics are identical; tests assert element equality with
+    dedup_ids.
 
     With ``vals`` (same shape as ids), the plan additionally carries the
     id-sorted values ``svals`` and sorted example indices ``sex`` for the
     hybrid sorted-backward step.
 
     Routes to the native radix-sort builder (native/dedup_plan.cpp) when
-    available: numpy's argsort + fancy-index passes measure ~68 ms for a
-    16384x39 batch on a 2-core host — 3x the device step, throttling the
-    prefetch pipeline — vs ~6 ms native. SPARKFM_NO_NATIVE=1 forces this
+    available: numpy's argsort + fancy-index passes are several times
+    slower than the native builder at Criteo batch shapes and can
+    throttle the prefetch pipeline. SPARKFM_NO_NATIVE=1 forces this
     numpy path (the semantics reference; parity pinned in
     tests/test_native_io.py).
     """
@@ -219,7 +209,7 @@ def stack_hybrid_extras(ranks, vals, num_shards: int,
 
     Given the GLOBAL plan's ranks (B, L) and the batch vals, split into
     ``num_shards`` equal row chunks and, per shard, sort its slots by
-    global rank so the analytic FM backward (ops/pallas_segsum.py::
+    global rank so the analytic FM backward (ops/segsum.py::
     fm_grad_segsum) can run per shard on DENSE local ranks
     (parallel/sharded_sgd.py "global" exchange, hybrid branch):
 
@@ -276,7 +266,7 @@ class SortedPlan(NamedTuple):
     """Slot-sorted lookup plan (the ``update_path="sorted"`` layout).
 
     Slots are reordered by feature id so that per-unique reductions become
-    contiguous-run segment sums (ops/pallas_segsum.py) instead of random
+    contiguous-run segment sums (ops/segsum.py) instead of random
     scatter-adds. Payloads ride the sort, so no unsort pass exists at all.
 
     svals: (N,) f32 — slot values in sorted order.
@@ -330,9 +320,19 @@ def sorted_plan(ids: jnp.ndarray, vals: jnp.ndarray, budget: int,
                       count=count, overflow=overflow)
 
 
-def gather_unique(table: jnp.ndarray, plan: DedupBatch) -> jnp.ndarray:
-    """(U, ...) unique rows from the big table — the only big gather."""
-    return table[plan.uids]
+def gather_rows(table: jnp.ndarray, ids: jnp.ndarray,
+                indices_are_sorted: bool = False) -> jnp.ndarray:
+    """(U, ...) rows of the big table — the only big-table gather.
+
+    ``promise_in_bounds`` skips XLA's clamping: every id must lie in
+    [0, table rows), which the plans guarantee by filling unused budget
+    slots with the table's own dummy row id. A plan's uids are ascending
+    with the max-id fill trailing, so callers pass
+    ``indices_are_sorted=True`` for them; never for unsorted ids (a false
+    promise gives wrong rows, not just slow ones).
+    """
+    return table.at[ids].get(indices_are_sorted=indices_are_sorted,
+                             mode="promise_in_bounds")
 
 
 def spread(rows_u: jnp.ndarray, plan: DedupBatch) -> jnp.ndarray:
@@ -350,17 +350,14 @@ def accumulate_to_unique(g_slots: jnp.ndarray, plan: DedupBatch,
 
 
 def accumulate_to_unique_sorted(g_slots: jnp.ndarray, plan: DedupBatch,
-                                budget: int,
-                                force: str = "auto") -> jnp.ndarray:
-    """Hybrid accumulate: permute per-slot grads into id-sorted order
-    (``plan.order``) and reduce contiguous runs with the streaming Pallas
-    segment-sum (ops/pallas_segsum.py).
+                                budget: int) -> jnp.ndarray:
+    """Sorted accumulate: permute per-slot grads into id-sorted order
+    (``plan.order``) and reduce contiguous runs with a segment sum
+    (ops/segsum.py).
 
     Same result as :func:`accumulate_to_unique` up to float summation
-    order, but the big random scatter-add (measured ~12 ms at Criteo
-    shapes, 639Kx66) becomes one permute-gather (~2-3 ms) plus a ~1.5 ms
-    streaming pass. Requires ``plan.order``/``plan.seg`` (both plan
-    builders emit them).
+    order. Requires ``plan.order``/``plan.seg`` (both plan builders emit
+    them).
     """
     assert plan.order is not None and plan.seg is not None
     n = plan.order.shape[0]
@@ -375,21 +372,26 @@ def accumulate_to_unique_sorted(g_slots: jnp.ndarray, plan: DedupBatch,
                          f"payloads, got trailing shape {flat.shape[1:]}")
     srt = flat.at[plan.order].get(unique_indices=True,
                                   mode="promise_in_bounds")
-    from sparkfm_tpu.ops import pallas_segsum as SS
-    out = SS.segment_rowsum(srt, plan.seg, budget, force=force)
+    from sparkfm_tpu.ops import segsum as SS
+    out = SS.segment_rowsum(srt, plan.seg, budget)
     return out[:, 0] if scalar else out
 
 
-def scatter_set_unique(table: jnp.ndarray, plan: DedupBatch,
-                       rows_u: jnp.ndarray) -> jnp.ndarray:
-    """Write updated unique rows back. Unused budget slots point at the
-    dummy fill row, so their writes are self-overwrites of garbage there.
+def write_rows(table: jnp.ndarray, ids: jnp.ndarray, rows: jnp.ndarray,
+               indices_are_sorted: bool = False,
+               unique_indices: bool = False) -> jnp.ndarray:
+    """table.at[ids].set(rows): the unique-row write-back.
 
-    This is the XLA fallback; the Pallas row-writer (ops/pallas_rowio.py)
-    replaces it on TPU where XLA scatter is ~200 ns/row.
+    Same ``promise_in_bounds`` contract as :func:`gather_rows`.
+    ``unique_indices`` is passed only when the caller opts in: dedup plans
+    pad unused budget slots with a repeated fill id, so uniqueness is
+    violated ONLY on the dummy row — its value races, which is fine
+    exactly because the dummy row's content is garbage by contract.
+    Callers writing real rows under duplicate ids keep it False.
     """
-    return table.at[plan.uids].set(
-        rows_u, unique_indices=True, indices_are_sorted=False)
+    return table.at[ids].set(rows, indices_are_sorted=indices_are_sorted,
+                             unique_indices=unique_indices,
+                             mode="promise_in_bounds")
 
 
 def auto_budget(n_slots: int, cap: int = 1 << 18) -> int:
@@ -411,10 +413,8 @@ def ladder_budget(count: int, cap: int = 1 << 18) -> int:
     The host input pipeline knows each batch's EXACT unique count before
     the step runs, so the plan can be padded to a tight rung instead of a
     worst-case power of two — every unique-row cost in the step (the
-    big-table gather, the update math, and above all the ~75 ns/row
-    write-back scatter) scales with the rung. Measured on v5e Criteo
-    shapes (~40.3K uniques): budget 2^16 -> 926K ex/s, rung 40960 ->
-    1.12M. A BOUNDED ladder caps jit recompiles: 4 rungs per octave, each
+    big-table gather, the update math and the write-back scatter) scales
+    with the rung. A BOUNDED ladder caps jit recompiles: 4 rungs per octave, each
     compiled once; with the monotonic-rung rule in batch_iterator real
     runs settle on one or two.
     """

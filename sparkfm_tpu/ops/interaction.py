@@ -8,10 +8,9 @@ per-example on the driver (reference: fm/FMModel.scala:34-63):
 Here it is batched: inputs are fixed-shape padded CSR batches
 (ids: (B, L) int32, vals: (B, L) float32, pad entries have val == 0 which
 makes them exact no-ops), and the per-factor loop becomes one vectorized
-(B, L, K) contraction that XLA fuses and tiles onto the VPU/MXU — measured,
-the interaction math itself is a negligible slice of a train step; the hot
-spots are table access (see ops/embedding.py, ops/pallas_segsum.py and the
-solvers' dedup/fused/sorted paths). This module is the semantics-defining
+(B, L, K) contraction that XLA fuses. The hot spots of a train step are
+table access (see ops/embedding.py, ops/segsum.py and the solvers'
+dedup/fused/sorted paths), not this math. This module is the semantics-defining
 baseline those paths are tested against (plus the brute-force O(nnz^2)
 pairwise oracle in tests/test_fm_math.py).
 """
@@ -103,14 +102,12 @@ def ffm_interaction_from_rows(vr, vals_c, field_ids, num_fields: int):
     and the unordered interaction is (T - D) / 2 where D removes the a == b
     self-pairs: D = sum_a x_a^2 |v_a[f_a]|^2. Identical math to the
     pairwise form (parity-tested), O(B·F²·K) memory instead of O(B·L²·K),
-    and the one-hot contraction is an MXU matmul.
+    and the one-hot contraction is a batched matmul.
 
     Args:
       vr: (B, L, F, K) gathered per-slot per-target-field factors
           (compute dtype), or flat (B, L, F*K) — the STORAGE layout is
-          flat (round 4: a (F_rows, nf, k) table tiles its minor-most
-          two dims to (8, 128), a 16x memory/traffic tax at k=8; flat
-          (F_rows, nf*k) pads 176 -> 256 lanes, 1.45x).
+          flat (models/fm.py::FMParams).
       vals_c: (B, L) values (padding exactly 0).
       field_ids: (B, L) int32 field of each slot.
     """
@@ -135,15 +132,14 @@ def ffm_interaction_slot_major(vr, vals_c):
     With field(a) == a, the field aggregation S[b,u,t,:] =
     sum_{a: field(a)=u} x_a v_a[t,:] collapses to the identity:
     S == xv. The one-hot einsums of :func:`ffm_interaction_from_rows`
-    (B batched (L,F)@(L,F*K) matmuls — M=K=22-sized operands that pad
-    ~6x each way on the 128x128 MXU) disappear entirely; the ordered-
-    pair total is a transpose multiply on the VPU:
+    (B batched (L,F)@(L,F*K) matmuls with 22-sized operands) disappear
+    entirely; the ordered-pair total is an elementwise transpose
+    multiply:
 
         T = sum_{t,u} <xv[u,t], xv[t,u]>,   diag_a = |xv[a,a]|^2
 
-    Measured (benchmarks/ablate_ffm.py, v5e, config-4 shape): ~1.3 ms/step
-    cheaper than the aggregated form in f32, ~2 ms in bf16. Parity vs the
-    aggregated and pairwise forms is pinned in tests/test_fm_math.py.
+    Parity vs the aggregated and pairwise forms is pinned in
+    tests/test_fm_math.py.
 
     Args:
       vr: (B, L, F, K) gathered factors with L == F.

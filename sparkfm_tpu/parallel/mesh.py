@@ -3,7 +3,7 @@
 The reference's only parallel axis is Spark data-parallelism over examples,
 with the whole model replicated to executors via closure serialization
 (SURVEY §2.7; reference fm/FMModel.scala:18-19 keeps w and V on the driver
-heap — its hard scale ceiling). The TPU-native layout is a 2-D
+heap — its hard scale ceiling). Here the layout is a 2-D
 `jax.sharding.Mesh`:
 
   data  — batch dimension (examples), the DP axis

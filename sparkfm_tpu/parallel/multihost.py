@@ -32,8 +32,7 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Join the multi-process JAX runtime.
 
-    With no args, trusts the environment (TPU pods auto-discover; GPU/CPU
-    read COORDINATOR_ADDRESS etc.). No-op for single-process runs without
+    With no args, trusts the environment (COORDINATOR_ADDRESS etc.). No-op for single-process runs without
     coordinator info.
     """
     # Detect "already initialized" WITHOUT jax.process_count(): that call

@@ -1,6 +1,6 @@
 """Sharded SGD: data-parallel examples x row-sharded parameter tables.
 
-The TPU-native replacement for the reference's "replicate the model in a
+The replacement for the reference's "replicate the model in a
 closure, collect everything to the driver" distribution model (SURVEY §2.7;
 reference ALS.scala:34 pulls the entire transposed dataset to the driver and
 FMModel lives whole on its heap). Here:
@@ -38,7 +38,7 @@ Three exchange strategies (``make_sharded_train_step(..., exchange=...)``):
     power-law ids). The trainer uses this whenever host plans are on.
     With per-shard sorted extras in the plan (stack_hybrid_extras), the
     local reduce is the single-chip hybrid step's analytic sorted
-    backward in the fm_grad_segsum kernel instead of jax.grad + a
+    backward (ops/segsum.py::fm_grad_segsum) instead of jax.grad + a
     (B/D)·L-slot scatter-add (auto for plain-FM f32 adagrad/sgd).
   * ``"dense"`` — the simple masked-psum of full slot-row tensors +
     all_gather of slot grads. Comm scales with B·L. Kept for adam/momentum
@@ -523,7 +523,7 @@ def _make_global_sharded_step(cfg: FMConfig, sgd_cfg: SGDConfig, mesh: Mesh):
         (U_cap, 2k+2) local sums into the SHARED global rank space via
         the host gmap, and ONE psum combines — no jax.grad, no
         (B/D)*L-slot scatter accumulate."""
-        from sparkfm_tpu.ops import pallas_segsum as SS
+        from sparkfm_tpu.ops import segsum as SS
 
         p = state.params
         ids = batch.ids                            # (B/D, L)
@@ -569,9 +569,8 @@ def _make_global_sharded_step(cfg: FMConfig, sgd_cfg: SGDConfig, mesh: Mesh):
             dsum = jnp.sum(jnp.square(err) * wt)
             ds = 2.0 * err * wt / denom_data
 
-        # ---- per-shard analytic sorted backward (factored: V_u never
-        # enters the stream — fm_grad_segsum_factored combines the
-        # example-payload run sums with the (U_cap, k+1) local rows)
+        # ---- per-shard analytic sorted backward over the (U_cap, k+1)
+        # local rows (ops/segsum.py::fm_grad_segsum_factored)
         vw_loc = vw_u.at[gmap_d].get(mode="promise_in_bounds")  # (U_cap,k+1)
         ex_pack = jnp.concatenate(
             [s, ds[:, None], wt[:, None]], axis=1)            # (B/D, k+2)
@@ -579,7 +578,7 @@ def _make_global_sharded_step(cfg: FMConfig, sgd_cfg: SGDConfig, mesh: Mesh):
         acc_loc = SS.fm_grad_segsum_factored(
             vw_loc, ex_srt, svals_d, seg_d, u_cap,
             2.0 * cfg.reg_v / denom_reg, 2.0 * cfg.reg_w / denom_reg)
-        # unused U_cap rows are exact zeros (kernel masks past seg[-1]);
+        # unused U_cap rows are exact zeros (no slot has their rank);
         # their gmap entries point at rank 0 and add nothing.
         acc = jnp.zeros((budget, 2 * k + 2), jnp.float32
                         ).at[gmap_d].add(acc_loc)

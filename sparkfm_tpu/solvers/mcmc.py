@@ -2,7 +2,7 @@
 
 The libFM solver family is SGD / ALS / MCMC; the reference implements only
 ALS (fm/lib/ALS.scala — SURVEY §2.3). This module restores MCMC, built on
-the same TPU-native blocked coordinate machinery as solvers/als.py:
+the same blocked coordinate machinery as solvers/als.py:
 
   * ALS draws theta* = (theta*den - num) / (reg + den); MCMC draws from the
     full conditional posterior

@@ -1,4 +1,4 @@
-"""SGD-family solver with TPU-native sparse updates.
+"""SGD-family solver with sparse row updates.
 
 The reference ships no SGD at all (SURVEY §2.3: only ALS exists; the libFM
 lineage implies SGD and BASELINE config 1 requires it). This is a from-scratch
@@ -56,9 +56,8 @@ def init_state(params: FMParams, optimizer: str = None) -> SGDState:
     """Fresh optimizer state. With ``optimizer`` given and != "adam",
     the second-moment slots are SCALAR placeholders instead of full
     table-sized buffers — adam is the only consumer, and a dead slot2_v
-    costs a whole table of HBM (a (2^22, 176) flat FFM table is ~4.3 GB;
-    the dead buffer was the difference between config 4 fitting one chip
-    or not). None (the default) keeps full slots for backward
+    costs a whole table of device memory (a (2^22, 176) flat FFM table
+    is ~2.9 GB). None (the default) keeps full slots for backward
     compatibility with callers that restore arbitrary checkpoints."""
     z = lambda x: jnp.zeros_like(x)
     lean = optimizer is not None and optimizer != "adam"
@@ -208,8 +207,7 @@ def _hybrid_eligible(cfg: FMConfig, sgd_cfg: SGDConfig) -> bool:
 def resolve_update_path(cfg: FMConfig, sgd_cfg: SGDConfig) -> str:
     """auto policy: small tables -> direct XLA; big tables -> hybrid
     (natural-order forward + analytic id-sorted backward;
-    solvers/sgd_hybrid.py — measured 854K vs fused's 750K ex/s at Criteo
-    shapes on v5e, bench.py) when host plans and the model/optimizer fit
+    solvers/sgd_hybrid.py) when host plans and the model/optimizer fit
     its restrictions, else fused-record (one gather + one write per
     unique id; solvers/sgd_fused.py), else dedup."""
     if sgd_cfg.update_path != "auto":
@@ -222,9 +220,8 @@ def resolve_update_path(cfg: FMConfig, sgd_cfg: SGDConfig) -> str:
         return "direct"
     if _hybrid_eligible(cfg, sgd_cfg):
         return "hybrid"
-    # Fused covers FFM since round 5: the 4-scatter dedup write-back was
-    # the dominant FFM stage (26.7 of 47 ms/step at the config-4 shape,
-    # benchmarks/ablate_ffm.py); one fused-record write removes it.
+    # Fused covers FFM: one fused-record write replaces the dedup path's
+    # four table scatters.
     if (sgd_cfg.optimizer in ("adagrad", "adagrad_row", "sgd")
             and sgd_cfg.momentum == 0):
         return "fused"
@@ -260,7 +257,7 @@ def make_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
 
     Two table-access paths (resolve_update_path): "direct" XLA
     gather/scatter, or "dedup" (sort + unique-compact; see ops/embedding.py
-    for the measured rationale). The dedup path requires the state to be
+    for the rationale). The dedup path requires the state to be
     padded with pad_state_for_dedup first. Both paths produce identical
     adagrad updates (tested to ~1e-6 in tests/test_dedup.py).
     """
@@ -327,10 +324,8 @@ def _make_dedup_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
     big-table touch per unique row instead of per slot.
     """
     from sparkfm_tpu.ops import embedding as E
-    from sparkfm_tpu.ops import pallas_rowio as PR
 
     ffm = cfg.num_fields > 0
-    scatter_mode = sgd_cfg.pallas_scatter
 
     def train_step(state: SGDState, batch: SparseBatch):
         p = state.params
@@ -398,16 +393,12 @@ def _make_dedup_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
                 else:
                     t_u = t_u - lr * g_u
             # unique hint: duplicate fill ids only race on the dummy row
-            # (garbage by contract); measured ~1.5x faster than the sorted
-            # hint on v5e (ops/pallas_rowio.scatter_set_rows_xla doc).
-            table = PR.scatter_set(table, plan.uids, t_u, force=scatter_mode,
-                                   unique_indices=True)
-            slot = PR.scatter_set(slot, plan.uids, s_u, force=scatter_mode,
-                                  unique_indices=True)
+            # (garbage by contract; ops/embedding.write_rows).
+            table = E.write_rows(table, plan.uids, t_u, unique_indices=True)
+            slot = E.write_rows(slot, plan.uids, s_u, unique_indices=True)
             if opt == "adam":
-                slot2 = PR.scatter_set(slot2, plan.uids, s2_u,
-                                       force=scatter_mode,
-                                       unique_indices=True)
+                slot2 = E.write_rows(slot2, plan.uids, s2_u,
+                                     unique_indices=True)
             return table, slot, slot2
 
         w, sw, s2w = unique_update(p.w, state.slot_w, state.slot2_w,

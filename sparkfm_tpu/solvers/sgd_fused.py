@@ -1,23 +1,18 @@
-"""Fused-record SGD: all per-feature state in one 128-lane row.
+"""Fused-record SGD: all per-feature state in one row.
 
-On TPU, every sparse-table touch pays a per-row cost (measured: XLA gather
-~40 ns/row, XLA scatter ~200-385 ns/row, the Pallas row-writer ~115 ns/row —
-all overhead-bound, nearly independent of row width up to a 512B lane tile).
-The classic layout (separate w, v, slot_w, slot_v tables) therefore pays
-that cost 4x per unique feature. This module fuses them:
+Every sparse-table touch pays a per-row cost (a dynamic gather or
+scatter of one row), nearly independent of row width. The classic layout
+(separate w, v, slot_w, slot_v tables) therefore pays that cost 4x per
+unique feature. This module fuses them:
 
     record[f] = [ v[f] (K) | slot_v[f] (K) | w[f] (1) | slot_w[f] (1) | pad ]
 
-one (F+1, W) f32 table with W = 128 * ceil((2K+2)/128) — the TPU lane tile.
-A train step does ONE unique-row gather and ONE row write-back for the
-entire optimizer state. Updates are identical in exact arithmetic to the
-direct XLA path for adagrad/sgd (same sum / sum-of-squares accumulation as
+one (F+1, W) f32 table with W = 128 * ceil((2K+2)/128). A train step
+does ONE unique-row gather and ONE row write-back for the entire
+optimizer state. Updates are identical in exact arithmetic to the direct
+XLA path for adagrad/sgd (same sum / sum-of-squares accumulation as
 solvers/sgd.py's dedup path); adam is not offered here (its slots would
 need a wider record — use update_path="dedup").
-
-The physical HBM layout of a (F, K) f32 array on TPU is already padded to
-128 lanes, so for K <= 63 the fused record costs no more memory than the
-separate v + slot_v tables it replaces.
 """
 
 from __future__ import annotations
@@ -32,7 +27,6 @@ from sparkfm_tpu.config import FMConfig, SGDConfig
 from sparkfm_tpu.data.batching import SparseBatch
 from sparkfm_tpu.models.fm import FMParams
 from sparkfm_tpu.ops import embedding as E
-from sparkfm_tpu.ops import pallas_rowio as PR
 from sparkfm_tpu.solvers import sgd as sgd_solver
 
 
@@ -66,7 +60,7 @@ def init_fused_state(cfg: FMConfig,
     the record table under one jit: materializing FMParams first costs a
     whole extra padded (F, vk) buffer at peak — at the full Avazu shape
     (2^22 x 176 -> 256 lanes, 4.3 GB, next to the 6.4 GB record table)
-    the eager `.at[].set` copies on top of that OOM'd one chip."""
+    the eager `.at[].set` copies on top of that multiply peak memory."""
     if key is None:
         key = jax.random.PRNGKey(cfg.seed)
     vk = v_lanes(cfg)
@@ -86,8 +80,8 @@ def init_fused_state(cfg: FMConfig,
         table = build(key)
     else:
         # Huge tables (> 1 GiB of draw): even the pad form peaks at
-        # table + v + the PRNG bit buffer (~12.8 GB at 2^24 x 32 —
-        # measured OOM on a ~15 GiB chip). Initialize per row-chunk
+        # table + v + the PRNG bit buffer (~12.8 GB at 2^24 x 32).
+        # Initialize per row-chunk
         # into the donated table instead: peak = table + one chunk.
         # Deterministic under the key (fold_in by row offset) but NOT
         # bitwise equal to the small-table single draw — both are
@@ -126,7 +120,7 @@ def fused_from_params(params: FMParams, cfg: FMConfig) -> FusedState:
     @jax.jit
     def build(v, wvec):
         # pad + one column set (see init_fused_state: zeros + two sets
-        # kept two full-size record buffers live and OOM'd 2^24 tables)
+        # kept two full-size record buffers live)
         table = jnp.pad(v.astype(jnp.float32), ((0, 1), (0, w - vk)))
         return table.at[:f, 2 * vk].set(wvec.astype(jnp.float32))
 
@@ -151,9 +145,8 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
     Optimizers: "adagrad" (element-wise accumulators), "adagrad_row"
     (DLRM-style row-wise: ONE second-moment scalar per embedding row =
     mean of squared grads over the k lanes, stored at slot lane 0 — the
-    packed gradient narrows from 2k+2 to k+3 lanes, which measures
-    ~3.7 ms/step faster at Criteo shapes because the unique-accumulate is
-    partially width-bound), or plain "sgd".
+    packed gradient narrows from 2k+2 to k+3 lanes, which narrows the
+    unique-accumulate), or plain "sgd".
     """
     if sgd_cfg.optimizer not in ("adagrad", "adagrad_row", "sgd"):
         raise ValueError("fused path supports adagrad/adagrad_row/sgd; use "
@@ -170,7 +163,6 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
     # step (for adagrad_row, the row-wise second moment then spans the
     # whole flat block — one accumulator per (feature) row, DLRM-style).
     k = v_lanes(cfg)
-    scatter_mode = sgd_cfg.pallas_scatter
 
     def train_step(state: FusedState, batch: SparseBatch):
         F = state.table.shape[0] - 1
@@ -187,8 +179,8 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
 
         # ---- ONE big-table gather for the whole working set
         # (uids ascending with the max-id fill row trailing)
-        rec_u = state.table.at[plan.uids].get(
-            indices_are_sorted=True, mode="promise_in_bounds")  # (U, W)
+        rec_u = E.gather_rows(state.table, plan.uids,
+                              indices_are_sorted=True)        # (U, W)
         rec_u = jnp.where(valid_u[:, None], rec_u, 0.0)
         v_u = rec_u[:, :k]
         slot_v_u = rec_u[:, k:2 * k]
@@ -199,9 +191,8 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
             return sgd_solver._batch_loss_from_rows(
                 w0, w_rows, v_rows, batch, cfg)
 
-        # ONE per-slot spread for [v | w]: gather cost is per-row (width-
-        # independent up to a lane tile), so fusing the two spreads halves
-        # the slot-space gather bill.
+        # ONE per-slot spread for [v | w]: gather cost is per-row, so
+        # fusing the two spreads halves the slot-space gather count.
         vw_u = jnp.concatenate([v_u, w_u[:, None]], axis=1)   # (U, k+1)
         vw_rows = E.spread(vw_u, plan)                        # (B, L, k+1)
         v_rows = vw_rows[..., :k]
@@ -212,14 +203,10 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
         g_w0, g_wrows, g_vrows = grads
 
         # ---- reduce per-slot gradients to per-unique-row gradients.
-        # "segsum" (hybrid): permute the NARROW pre-square payload
-        # [g_v | g_w] (k+1 lanes) into id-sorted order — the plan carries
-        # the permutation — square/pack in sorted space, and reduce the
-        # contiguous runs with the streaming Pallas segment-sum.
-        # In-step ablation (benchmarks/ablate_prod.py, v5e, B=16K Criteo
-        # shape) measured permute ~7.8 ms + segsum ~7.2 ms vs ~12 ms for
-        # the plain scatter-add — so "auto" picks SCATTER; segsum stays
-        # as an explicit opt-in (and the kernel for the sharded paths).
+        # "segsum": permute the NARROW pre-square payload [g_v | g_w]
+        # (k+1 lanes) into id-sorted order — the plan carries the
+        # permutation — square/pack in sorted space, and reduce the
+        # contiguous runs with a segment sum. "auto" is the scatter-add.
         if sgd_cfg.accumulate == "segsum" and plan.order is None:
             raise ValueError(
                 "accumulate='segsum' requires a plan with the id-sort "
@@ -229,7 +216,7 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
         gv_s = g_vrows.reshape(-1, k)
         gw_s = g_wrows.reshape(-1, 1)
         if use_segsum and plan.order is not None:
-            from sparkfm_tpu.ops import pallas_segsum as SS
+            from sparkfm_tpu.ops import segsum as SS
             gvw = jnp.concatenate([gv_s, gw_s], axis=-1)      # (N, k+1)
             gvw_s = gvw.at[plan.order].get(unique_indices=True,
                                            mode="promise_in_bounds")
@@ -286,12 +273,10 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
             [v_new, slot_v_new, w_new[:, None], slot_w_new[:, None],
              jnp.zeros((budget, pad), jnp.float32)], axis=1)
 
-        # ---- ONE big-table write-back. unique beats sorted by ~2.2 ms at
-        # Criteo shapes (and sorted+unique hangs the XLA:TPU compiler — see
-        # ops/pallas_rowio.scatter_set_rows_xla); duplicate fill ids only
-        # race on the dummy row, whose content is garbage by contract.
-        table = PR.scatter_set(state.table, plan.uids, rec_new,
-                               force=scatter_mode, unique_indices=True)
+        # ---- ONE big-table write-back; duplicate fill ids only race on
+        # the dummy row, whose content is garbage by contract.
+        table = E.write_rows(state.table, plan.uids, rec_new,
+                             unique_indices=True)
 
         if cfg.use_bias:
             w0, sw0, _ = sgd_solver._dense_scalar_update(
@@ -319,12 +304,9 @@ def make_fused_multi_step(cfg: FMConfig, sgd_cfg: SGDConfig):
     sgd_hybrid.stack_batches. aux carries the last step's loss, the
     group mean, and overflow OR-ed over the group.
 
-    Measured (v5e, round 5): G=1/2/4 are IDENTICAL at the FFM config-4
-    shape (16.0 ms/step) and an FM L=39 shape (11.5 ms) — unlike the
-    hybrid headline where G=2 bought ~5% — so the single step remains
-    the default everywhere; this exists for API symmetry with the
-    hybrid path and for dispatch-starved environments (e.g. many tiny
-    batches per rung)."""
+    The single step remains the default everywhere; this exists for API
+    symmetry with the hybrid path and for dispatch-starved environments
+    (e.g. many tiny batches per rung)."""
     raw = make_fused_train_step(cfg, sgd_cfg, _jit=False)
 
     def multi(state: FusedState, stacked: SparseBatch):

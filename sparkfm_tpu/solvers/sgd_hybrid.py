@@ -1,37 +1,33 @@
 """Hybrid SGD step: natural-order forward, sorted-order analytic backward.
 
-The fused step (solvers/sgd_fused.py) spends its backward in two expensive
-movements measured on v5e at Criteo shapes (benchmarks/ablate_prod.py,
-benchmarks/probe_hybrid2.py):
-
-    permute slot grads into id-sorted order   ~7.8 ms in-step
-    (or XLA scatter-add accumulate            ~12 ms)
-
-Both exist only because gradients are *produced* in natural slot order.
-This step never produces them there. The FM gradient has a closed form in
-terms of per-example quantities:
+The fused step (solvers/sgd_fused.py) produces per-slot gradients in
+natural slot order and then has to move them to per-unique-row sums:
+either a scatter-add into the (U, W) accumulator or a permute into
+id-sorted order followed by a segment sum. This step never produces them
+in natural order. The FM gradient has a closed form in terms of
+per-example quantities:
 
     dL/dv[b,l,f] = ds_b * x_bl * (s_bf - v[b,l,f] * x_bl)
     dL/dw[b,l]   = ds_b * x_bl
     (+ per-appearance L2 terms)
 
-so after the (cheap, natural-order) forward computes s (B, K) and the loss
+so after the natural-order forward computes s (B, K) and the loss
 derivative ds (B,), the backward evaluates those formulas DIRECTLY IN
-ID-SORTED SLOT ORDER using three cheap gathers (measured, v5e):
+ID-SORTED SLOT ORDER from three gathers:
 
-    v_sorted  = vw_u[plan.seg]          sorted-indices gather   ~1.0 ms
-    ex rows   = [s | ds | wt][plan.sex] random gather, B rows   ~1.5 ms
+    v_sorted  = vw_u[plan.seg]          sorted-indices gather
+    ex rows   = [s | ds | wt][plan.sex] random gather, B rows
     x_sorted  = plan.svals              free (host plan carries it)
 
-and reduces contiguous runs with the in-kernel-squaring segment sum
-(ops/pallas_segsum.py::segment_rowsum_sq) — no permute, no scatter-add.
+and reduces contiguous runs with a segment sum
+(ops/segsum.py::fm_grad_segsum_factored) — no permute of slot gradients.
 Update math (adagrad / adagrad_row / sgd on the fused record layout) is
 identical to make_fused_train_step up to float summation order; parity is
 tested in tests/test_sgd_hybrid.py against the jax.grad-based fused step.
 
 Requires a host plan carrying order/seg/svals/sex (the input pipeline
-emits them: data/batching.py::batch_iterator with dedup_budget); device
-plans would need a ~6 ms 1-lane permute for svals, defeating the point.
+emits them: data/batching.py::batch_iterator with dedup_budget); a device
+plan would have to permute the slot values on device first.
 """
 
 from __future__ import annotations
@@ -41,20 +37,16 @@ import jax.numpy as jnp
 
 from sparkfm_tpu.config import FMConfig, SGDConfig, Task
 from sparkfm_tpu.data.batching import SparseBatch
-from sparkfm_tpu.ops import pallas_rowio as PR
-from sparkfm_tpu.ops import pallas_segsum as SS
+from sparkfm_tpu.ops import embedding as E
+from sparkfm_tpu.ops import segsum as SS
 from sparkfm_tpu.solvers import sgd as sgd_solver
 from sparkfm_tpu.solvers.sgd_fused import FusedState
 
 
 def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
-                           segsum_force: str = "auto",
-                           bf16x2: bool = True,
                            _jit: bool = True):
     """(FusedState, SparseBatch) -> (FusedState, aux). See module doc.
 
-    segsum_force/bf16x2 feed segment_rowsum_sq (tests pin "xla" for exact
-    f32 parity; bf16x2=True costs ~2e-4 max relative error on gradient sums).
     _jit=False returns the raw traceable step (make_hybrid_multi_step
     wraps it in a lax.scan).
     """
@@ -71,7 +63,6 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
                          "regularization yet; use update_path='fused' or "
                          "'dedup' (their loss gathers per-group lambdas)")
     k = cfg.num_factors
-    scatter_mode = sgd_cfg.pallas_scatter
     classification = cfg.task == Task.CLASSIFICATION
 
     def train_step(state: FusedState, batch: SparseBatch):
@@ -86,8 +77,8 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
             plan.count, budget)
 
         # ---- ONE big-table gather for the whole working set
-        rec_u = state.table.at[plan.uids].get(
-            indices_are_sorted=True, mode="promise_in_bounds")  # (U, W)
+        rec_u = E.gather_rows(state.table, plan.uids,
+                              indices_are_sorted=True)        # (U, W)
         rec_u = jnp.where(valid_u[:, None], rec_u, 0.0)
         v_u = rec_u[:, :k]
         slot_v_u = rec_u[:, k:2 * k]
@@ -123,23 +114,16 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
             data_loss = jnp.sum(jnp.square(err) * wt) / denom_data
             ds = 2.0 * err * wt / denom_data
 
-        # ---- sorted-order analytic backward, fully in-kernel: the
-        # gradient formula AND the [Σg | Σg²] reduce run in one streaming
-        # Pallas pass — and since every slot in a run shares the SAME
-        # unique row, V_u factors out of the run sums analytically
-        # (ops/pallas_segsum.py::fm_grad_segsum_factored): the kernel
-        # streams only example-derived payloads, so neither the (N, k+1)
-        # gradient pack NOR the (N, k+1) sorted row matrix ever exists in
-        # HBM (the vw_u[plan.seg] gather alone measured ~2 ms in-step on
-        # v5e, docs/PERF.md round-4 anatomy).
+        # ---- sorted-order analytic backward: the gradient formula and
+        # the [Σg | Σg²] reduce over id-sorted runs
+        # (ops/segsum.py::fm_grad_segsum_factored).
         ex_pack = jnp.concatenate(
             [s, ds[:, None], wt[:, None]], axis=1)            # (B, k+2)
         ex_srt = ex_pack[plan.sex]                            # (N, k+2)
         x = plan.svals                                        # (N,)
         acc = SS.fm_grad_segsum_factored(
             vw_u, ex_srt, x, plan.seg, budget,
-            2.0 * cfg.reg_v / denom_reg, 2.0 * cfg.reg_w / denom_reg,
-            bf16x2=bf16x2, force=segsum_force)
+            2.0 * cfg.reg_v / denom_reg, 2.0 * cfg.reg_w / denom_reg)
         g_v_u, g_w_u = acc[:, :k], acc[:, k]
         sq_v_u, sq_w_u = acc[:, k + 1:2 * k + 1], acc[:, 2 * k + 1]
         if not cfg.use_linear:
@@ -175,8 +159,8 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
         rec_new = jnp.concatenate(
             [v_new, slot_v_new, w_new[:, None], slot_w_new[:, None],
              jnp.zeros((budget, pad), jnp.float32)], axis=1)
-        table = PR.scatter_set(state.table, plan.uids, rec_new,
-                               force=scatter_mode, unique_indices=True)
+        table = E.write_rows(state.table, plan.uids, rec_new,
+                             unique_indices=True)
 
         if cfg.use_bias:
             g_w0 = jnp.sum(ds) + 2.0 * cfg.reg0 * state.w0
@@ -206,16 +190,14 @@ def stack_batches(batches):
 
 
 def make_hybrid_multi_step(cfg: FMConfig, sgd_cfg: SGDConfig,
-                           group: int = 0, segsum_force: str = "auto",
-                           bf16x2: bool = True):
+                           group: int = 0):
     """G hybrid steps per dispatch via lax.scan over stacked batches.
 
-    Why: on TPU each jitted dispatch carries a fixed launch/donation
-    overhead (measured ~1.6 ms/step for a donating no-op on v5e,
-    docs/PERF.md round-4 anatomy) that the single-step loop pays per
-    batch. Scanning G staged batches amortizes it to 1/G while keeping
-    update math EXACTLY the single-step sequence (scan is sequential;
-    the table dependency chains through).
+    Why: each jitted dispatch carries a fixed launch/donation overhead
+    that the single-step loop pays per batch. Scanning G staged batches
+    amortizes it to 1/G while keeping update math EXACTLY the
+    single-step sequence (scan is sequential; the table dependency
+    chains through).
 
     aux is the LAST step's aux plus "unique_overflow" OR-ed over the
     group (an overflow anywhere must surface). `group` is documentary —
@@ -223,8 +205,7 @@ def make_hybrid_multi_step(cfg: FMConfig, sgd_cfg: SGDConfig,
     multi-step serves any group size (each size compiles once).
     """
     del group
-    raw = make_hybrid_train_step(cfg, sgd_cfg, segsum_force, bf16x2,
-                                 _jit=False)
+    raw = make_hybrid_train_step(cfg, sgd_cfg, _jit=False)
 
     def multi(state: FusedState, stacked: SparseBatch):
         def body(s, b):

@@ -1,27 +1,21 @@
 """Sorted-slot SGD: the fused-record path restructured around sorted runs.
 
-Motivation (all numbers measured on v5e, 16384x39 Criteo-shape batches,
-2^22-bucket rank-32 table — see benchmarks/microbench.py): the fused path's
-cost is dominated by row-granular dynamic ops —
+The fused path's cost is dominated by row-granular dynamic ops: the
+per-slot spread of unique rows, the scatter-add of slot gradients into
+the (U, W) accumulator, and the big-table gather and write-back. This
+path removes every random-access op that scales with N:
 
-    spread  rows_u[ranks]   (639K rows)        ~2 ms
-    scatter-add grads -> (U, 66)               ~9-15 ms
-    XLA gather of U unique rows from big table ~8 ms   (123 ns/row!)
-    XLA scatter write-back                     ~15-30 ms
-
-This path removes every random-access op that scales with N:
-
-  1. ONE sort of (id, val, pos) — payloads ride the sort (~3 ms); slots
-     stay in sorted order forever after (no unsort).
-  2. Unique rows come in via the Pallas pipelined row-gather
-     (ops/pallas_rowio.gather_rows) and leave via the Pallas row-writer.
-  3. The forward expands unique rows to slots with a *monotone* gather
-     (cheap), reduces per-example sums by scatter-add into the small
-     (B, k+2) example space (~4 ms), and computes loss/score vectorized.
+  1. ONE sort of (id, val, pos) — payloads ride the sort; slots stay in
+     sorted order forever after (no unsort).
+  2. Unique rows come in with one gather (ops/embedding.gather_rows) and
+     leave with one write-back (ops/embedding.write_rows).
+  3. The forward expands unique rows to slots with a *monotone* gather,
+     reduces per-example sums by scatter-add into the small (B, k+2)
+     example space, and computes loss/score vectorized.
   4. The per-example part of the backward is jax.grad of a tiny (B, k+2)
      function — the slot-space bilinear backward is written by hand.
-  5. Per-unique gradient sums use the streaming segment row-sum kernel
-     (ops/pallas_segsum.py, ~1 ms) instead of XLA scatter-add.
+  5. Per-unique gradient sums are a segment sum over sorted runs
+     (ops/segsum.py) instead of a scatter-add by rank.
 
 Update semantics are identical to solvers/sgd_fused.py (same fused-record
 table layout, same adagrad sum-of-squares accumulation; tested for parity).
@@ -41,19 +35,13 @@ from sparkfm_tpu.config import FMConfig, SGDConfig
 from sparkfm_tpu.data.batching import SparseBatch
 from sparkfm_tpu.ops import embedding as E
 from sparkfm_tpu.ops import losses as L
-from sparkfm_tpu.ops import pallas_rowio as PR
-from sparkfm_tpu.ops import pallas_segsum as SS
+from sparkfm_tpu.ops import segsum as SS
 from sparkfm_tpu.solvers import sgd as sgd_solver
 from sparkfm_tpu.solvers.sgd_fused import FusedState  # shared layout
 
 
-def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
-                           kernel_mode: str = "auto"):
-    """(FusedState, SparseBatch) -> (FusedState, aux).
-
-    kernel_mode: "auto" | "pallas" | "xla" | "interpret" — forwarded to the
-    row-gather/row-write/segment-sum kernels (tests use "interpret"/"xla").
-    """
+def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
+    """(FusedState, SparseBatch) -> (FusedState, aux)."""
     if cfg.num_fields > 0:
         raise ValueError("sorted path supports plain FM")
     if sgd_cfg.optimizer not in ("adagrad", "sgd"):
@@ -62,7 +50,6 @@ def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
         raise ValueError("sorted path: momentum not supported")
     k = cfg.num_factors
     loss_fn = L.loss_for_task(cfg.task)
-    mode = kernel_mode if kernel_mode != "auto" else sgd_cfg.pallas_scatter
 
     def train_step(state: FusedState, batch: SparseBatch):
         F = state.table.shape[0] - 1
@@ -75,8 +62,8 @@ def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
         ex = plan.sex                                   # (N,) example idx
 
         # ---- unique-row gather (uids ascending; fill=F is the max id)
-        rec_u = PR.gather_rows(state.table, plan.uids, force=mode,
-                               indices_are_sorted=True)        # (U, W)
+        rec_u = E.gather_rows(state.table, plan.uids,
+                              indices_are_sorted=True)        # (U, W)
         v_u = rec_u[:, :k]
         w_u = rec_u[:, 2 * k]
         vw_u = jnp.concatenate([v_u, w_u[:, None]], axis=1)   # (U, k+1)
@@ -127,11 +114,11 @@ def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
         g_w = (g_slot[:, k + 1] * x
                + (2.0 * cfg.reg_w / denom) * w_s * active)
 
-        # ---- per-unique sums via streaming segment row-sum
+        # ---- per-unique sums over the sorted runs
         packed = jnp.concatenate(
             [g_v, jnp.square(g_v), g_w[:, None],
              jnp.square(g_w)[:, None]], axis=1)         # (N, 2k+2)
-        acc = SS.segment_rowsum(packed, plan.seg, budget, force=mode)
+        acc = SS.segment_rowsum(packed, plan.seg, budget)
         g_v_u, sq_v_u = acc[:, :k], acc[:, k:2 * k]
         g_w_u, sq_w_u = acc[:, 2 * k], acc[:, 2 * k + 1]
 
@@ -156,8 +143,8 @@ def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
             [v_new, slot_v_new, w_new[:, None], slot_w_new[:, None],
              jnp.zeros((budget, pad), jnp.float32)], axis=1)
 
-        table = PR.scatter_set(state.table, plan.uids, rec_new, force=mode,
-                               indices_are_sorted=True)
+        table = E.write_rows(state.table, plan.uids, rec_new,
+                             indices_are_sorted=True)
 
         if cfg.use_bias:
             # example_loss includes reg0*w0^2, so g_w0 already carries the

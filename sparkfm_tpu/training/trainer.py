@@ -1,6 +1,6 @@
 """Training loop: pluggable solver + per-epoch evaluation.
 
-TPU-native counterpart of the reference's FactorizationMachines.learnWith
+Counterpart of the reference's FactorizationMachines.learnWith
 (impl/FactorizationMachines.scala:30-49): same observable behavior — build
 model, iterate solver epochs, log train metric each epoch, return the model —
 but the epoch body is jitted device code and eval cadence is configurable
@@ -53,7 +53,7 @@ def evaluate(params: FMParams, cfg: FMConfig, ds: SparseDataset,
     if cfg.num_fields == 0 and cfg.num_features >= (1 << 16):
         # fill = LAST row id: fill entries trail the sorted uniques, so
         # fill must compare >= every uid or fm.scores'
-        # indices_are_sorted gather promise is violated (UB on TPU)
+        # indices_are_sorted gather promise is violated (wrong rows)
         dedup_budget, dedup_fill = "ladder", cfg.num_features - 1
     all_scores: List[np.ndarray] = []
     for b in batch_iterator(ds, batch_size, shuffle=False,
@@ -210,7 +210,7 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
         dedup_fill = cfg.num_features
 
     # Hybrid multi-step: scan steps_per_dispatch staged batches per
-    # jitted call, amortizing the fixed ~1.6 ms/dispatch launch floor
+    # jitted call, amortizing the fixed per-dispatch launch cost
     # (solvers/sgd_hybrid.py::make_hybrid_multi_step; exact same update
     # sequence). Only consecutive batches whose ladder plans share a
     # rung group together; rung growth or tails fall back to singles.

@@ -93,27 +93,6 @@ class TestDedupStepParity:
         np.testing.assert_allclose(np.asarray(s_u.slot_w[:F]),
                                    np.asarray(s_d.slot_w), atol=2e-6)
 
-    def test_pallas_writer_parity(self):
-        """Dedup step with the Pallas row-writer (interpret mode) ==
-        dedup step with XLA scatter-set."""
-        F, B, L, K = 150, 16, 5, 4
-        cfg = FMConfig(num_features=F, num_factors=K, reg_v=0.01, seed=0)
-        rng = np.random.default_rng(7)
-        batch = _mk_batch(rng, B, L, F)
-        params = fm_model.init_params(cfg, jax.random.PRNGKey(3))
-        copy = lambda p: jax.tree_util.tree_map(jnp.array, p)
-        outs = {}
-        for mode in ["xla", "interpret"]:
-            s = sgd_solver.pad_state_for_dedup(
-                sgd_solver.init_state(copy(params)))
-            step = sgd_solver.make_train_step(
-                cfg, SGDConfig(learning_rate=0.1, update_path="dedup",
-                               pallas_scatter=mode))
-            s, _ = step(s, batch)
-            outs[mode] = np.asarray(s.params.v[:F])
-        np.testing.assert_allclose(outs["interpret"], outs["xla"],
-                                   atol=1e-6)
-
     def test_multi_step_parity_adagrad(self):
         F, B, L, K = 128, 16, 4, 3
         cfg = FMConfig(num_features=F, num_factors=K, reg_v=0.01, seed=1)
@@ -340,8 +319,7 @@ def test_accumulate_sorted_matches_scatter():
     g = rng.normal(size=(5, 6, 9)).astype(np.float32)
     plan = E.dedup_ids(jnp.asarray(ids), 48, fill=40)
     a = E.accumulate_to_unique(jnp.asarray(g), plan, 48)
-    b = E.accumulate_to_unique_sorted(jnp.asarray(g), plan, 48,
-                                      force="xla")
+    b = E.accumulate_to_unique_sorted(jnp.asarray(g), plan, 48)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                rtol=1e-5, atol=1e-6)
 
@@ -497,19 +475,19 @@ def test_accumulate_sorted_scalar_payload():
     g = rng.normal(size=(5, 6)).astype(np.float32)   # scalar per slot
     plan = E.dedup_ids(jnp.asarray(ids), 48, fill=40)
     a = E.accumulate_to_unique(jnp.asarray(g), plan, 48)
-    b = E.accumulate_to_unique_sorted(jnp.asarray(g), plan, 48, force="xla")
+    b = E.accumulate_to_unique_sorted(jnp.asarray(g), plan, 48)
     assert b.shape == (48,)
     np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                rtol=1e-5, atol=1e-6)
     g3 = rng.normal(size=(5, 6, 2, 3)).astype(np.float32)
     with pytest.raises(ValueError, match="payload"):
-        E.accumulate_to_unique_sorted(jnp.asarray(g3), plan, 48, force="xla")
+        E.accumulate_to_unique_sorted(jnp.asarray(g3), plan, 48)
 
 
-def test_accumulate_sorted_interpret_fused_shapes():
-    """Run the actual Pallas segment-sum (interpret mode) on fused-step
-    payload shapes — k+3 and 2k+2 lanes padded to 128, N << tile — and
-    match the XLA fallback (ADVICE r1 item 2)."""
+def test_accumulate_sorted_fused_shapes():
+    """The sorted accumulate on fused-step payload shapes (k+3 and 2k+2
+    lanes, N << U) matches the scatter-add accumulate and a float64
+    NumPy oracle (ADVICE r1 item 2)."""
     import numpy as np
     import jax.numpy as jnp
     from sparkfm_tpu.ops import embedding as E
@@ -519,22 +497,26 @@ def test_accumulate_sorted_interpret_fused_shapes():
     plan = E.dedup_ids(jnp.asarray(ids), 32, fill=30)
     for width in (k + 3, 2 * k + 2):
         g = rng.normal(size=(8, 5, width)).astype(np.float32)
-        a = E.accumulate_to_unique_sorted(jnp.asarray(g), plan, 32,
-                                          force="xla")
-        b = E.accumulate_to_unique_sorted(jnp.asarray(g), plan, 32,
-                                          force="interpret")
+        a = E.accumulate_to_unique(jnp.asarray(g), plan, 32)
+        b = E.accumulate_to_unique_sorted(jnp.asarray(g), plan, 32)
+        want = np.zeros((32, width), np.float64)
+        np.add.at(want, np.asarray(plan.ranks).reshape(-1),
+                  g.reshape(-1, width).astype(np.float64))
+        assert b.shape == (32, width)
+        np.testing.assert_allclose(np.asarray(b), want, rtol=1e-5,
+                                   atol=1e-6)
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-5, atol=1e-6)
 
 
 def test_fill_slot_writes_identical():
     """Guard for the unique_indices=True scatter hint (ADVICE r2,
-    ops/pallas_rowio.scatter_set_rows_xla): dedup plans repeat the fill id
-    in unused budget slots, so uniqueness is violated on the dummy row.
-    That is benign ONLY while every duplicate fill slot writes an
-    identical row. Assert that invariant on the real dedup step by
-    intercepting scatter_set under disable_jit."""
-    from sparkfm_tpu.ops import pallas_rowio as PR
+    ops/embedding.write_rows): dedup plans repeat the fill id in unused
+    budget slots, so uniqueness is violated on the dummy row. That is
+    benign ONLY while every duplicate fill slot writes an identical row.
+    Assert that invariant on the real dedup step by intercepting
+    write_rows under disable_jit."""
+    from sparkfm_tpu.ops import embedding as E
 
     rng = np.random.default_rng(5)
     F, K, B, L = 40, 4, 8, 5
@@ -551,7 +533,7 @@ def test_fill_slot_writes_identical():
                         mask=jnp.ones((B,), bool))
 
     recorded = []
-    orig = PR.scatter_set
+    orig = E.write_rows
 
     def spy(table, sids, rows, **kw):
         sids_np = np.asarray(sids)
@@ -559,14 +541,14 @@ def test_fill_slot_writes_identical():
         recorded.append(fill_rows)
         return orig(table, sids, rows, **kw)
 
-    PR.scatter_set = spy
+    E.write_rows = spy
     try:
         with jax.disable_jit():
             step(state, batch)
     finally:
-        PR.scatter_set = orig
+        E.write_rows = orig
 
-    assert recorded, "dedup step never hit scatter_set"
+    assert recorded, "dedup step never hit write_rows"
     saw_dupes = False
     for fill_rows in recorded:
         if fill_rows.shape[0] > 1:

@@ -198,8 +198,7 @@ def test_facade_autodetects_slot_major_fields():
 
 def test_ffm_bf16_compute_trains_close_to_f32():
     """compute_dtype='bfloat16' on the fused FFM path: trains, and the
-    first-step loss sits within bf16 tolerance of f32 (the measured
-    ~7% step-time option documented in docs/PERF.md)."""
+    first-step loss sits within bf16 tolerance of f32."""
     import jax
     from sparkfm_tpu.config import FMConfig, SGDConfig, Task
     from sparkfm_tpu.data.batching import SparseBatch

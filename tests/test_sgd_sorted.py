@@ -34,8 +34,7 @@ def _run_parity(cfg, sgd_cfg, batches, rtol=2e-4, atol=2e-5):
     s_f = sgd_fused.init_fused_state(cfg, jax.random.PRNGKey(0))
     s_s = sgd_fused.init_fused_state(cfg, jax.random.PRNGKey(0))
     step_f = sgd_fused.make_fused_train_step(cfg, sgd_cfg)
-    step_s = sgd_sorted.make_sorted_train_step(cfg, sgd_cfg,
-                                               kernel_mode="xla")
+    step_s = sgd_sorted.make_sorted_train_step(cfg, sgd_cfg)
     for b in batches:
         s_f, aux_f = step_f(s_f, b)
         s_s, aux_s = step_s(s_s, b)
@@ -101,8 +100,7 @@ def test_loss_decreases_end_to_end():
                         optimizer="adagrad", unique_budget=512)
     true_w = rng.normal(size=F).astype(np.float32)
     state = sgd_fused.init_fused_state(cfg, jax.random.PRNGKey(2))
-    step = sgd_sorted.make_sorted_train_step(cfg, sgd_cfg,
-                                             kernel_mode="xla")
+    step = sgd_sorted.make_sorted_train_step(cfg, sgd_cfg)
     first = last = None
     for i in range(60):
         ids = rng.integers(0, F, (B, L)).astype(np.int32)
@@ -115,26 +113,3 @@ def test_loss_decreases_end_to_end():
             first = float(aux["loss"])
         last = float(aux["loss"])
     assert last < 0.2 * first, (first, last)
-
-
-def test_interpret_kernels_match_xla_mode():
-    """Same step with kernel_mode='interpret' (Pallas emulation) must match
-    kernel_mode='xla' — exercises gather_rows/segment_rowsum/scatter_set."""
-    rng = np.random.default_rng(5)
-    cfg = FMConfig(num_features=64, num_factors=4, reg_v=0.01, seed=1)
-    sgd_cfg = SGDConfig(batch_size=8, learning_rate=0.1,
-                        optimizer="adagrad", unique_budget=64)
-    batches = _batches(rng, 8, 5, 64, 2)
-    s_x = sgd_fused.init_fused_state(cfg, jax.random.PRNGKey(0))
-    s_i = sgd_fused.init_fused_state(cfg, jax.random.PRNGKey(0))
-    step_x = sgd_sorted.make_sorted_train_step(cfg, sgd_cfg,
-                                               kernel_mode="xla")
-    step_i = sgd_sorted.make_sorted_train_step(cfg, sgd_cfg,
-                                               kernel_mode="interpret")
-    for b in batches:
-        s_x, _ = step_x(s_x, b)
-        s_i, _ = step_i(s_i, b)
-    F = cfg.num_features
-    np.testing.assert_allclose(np.asarray(s_i.table[:F]),
-                               np.asarray(s_x.table[:F]),
-                               rtol=1e-5, atol=1e-6)

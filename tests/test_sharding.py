@@ -519,7 +519,7 @@ def test_trainer_mesh_auto_path_runs_hybrid_backward(monkeypatch):
     host plans) must actually trace the analytic sorted backward
     (fm_grad_segsum), not silently fall back to jax.grad."""
     from sparkfm_tpu.config import MeshConfig
-    from sparkfm_tpu.ops import pallas_segsum as SS
+    from sparkfm_tpu.ops import segsum as SS
     from sparkfm_tpu.training import trainer
 
     calls = []
